@@ -1,4 +1,4 @@
-"""Sequence-parallel banded KKT benchmark (VERDICT r1 item 6).
+"""Sequence-parallel banded KKT benchmark.
 
 Trajectory-horizon QP ensembles (robust_avoid's T-step dynamics class,
 reference examples/deprecated/robust_avoid.jl:72-83) have block-tridiagonal

@@ -1,6 +1,6 @@
 """Round-5 diagnostic: run the large shared-route row once in THIS process
 and dump per-lane outcome fingerprints so two fresh-process runs can be
-diffed (VERDICT r4 item 1: host_solves went 0->105 at fixed seed between
+diffed (host_solves went 0->105 at fixed seed between
 the builder's and the driver's runs of the same HEAD).
 
 Usage:  python benchmarks/diag_large.py out.json [S] [T]

@@ -1,4 +1,4 @@
-"""End-to-end scenario-ensemble equilibrium benchmark (VERDICT r4 item 3).
+"""End-to-end scenario-ensemble equilibrium benchmark.
 
 Runs ONE full sharded equilibrium superstep at trajectory scale — the
 workload class the reference explicitly cannot run ("Medium and Large-scale
@@ -11,9 +11,9 @@ active-set signature prune (the ensemble-level solution-map dedup).
 Every lane is a complete equilibrium problem of the deepest level of the
 robust_avoid network; the superstep is the framework's "training step"
 analogue (parallel/sharded.py).  The multilevel zoo class with per-model
-solution graphs stays host-glue-bound by measured design (BASELINE.md) —
-THIS class is where the chip is supposed to dominate, so the artifact
-records fresh-process cold and warm walls for direct TPU-vs-CPU ratios.
+solution graphs stays host-glue-bound by design — THIS class is where the
+card is supposed to dominate, so the artifact records fresh-process cold
+and warm walls for direct GPU-vs-CPU ratios.
 
     python benchmarks/e2e_ensemble_bench.py out.json [--cpu] [S] [T]
 """

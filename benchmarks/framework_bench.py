@@ -1,9 +1,9 @@
 """Framework-level benchmark: full-equilibrium wall-clock across the model
-zoo (the BASELINE.md configs), plus solver-phase counters.
+zoo, plus solver-phase counters.
 
 Unlike the driver's /root/repo/bench.py (single JSON line, kernel-level AVI
 throughput), this prints a human-readable table of end-to-end solve times —
-run it on CPU or TPU:
+run it on the CPU or the GPU:
 
     python benchmarks/framework_bench.py [--cpu]
 """

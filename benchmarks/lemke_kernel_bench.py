@@ -1,8 +1,9 @@
 """Pivot-engine microbenchmark: fused Pallas kernel vs XLA while_loop.
 
 Runs the bench.py scenario ensemble (256 KKT AVIs) through both f32 pivot
-engines on the default backend and reports wall time + certification after
-the host f64 terminal refactorization.
+engines on the default backend (the kernel in the Pallas interpreter on the
+CPU) and reports wall time + certification after the host f64 terminal
+refactorization.
 
     python benchmarks/lemke_kernel_bench.py [--cpu] [--sizes 256]
 """
@@ -49,7 +50,7 @@ def main():
     interp = backend == "cpu"
 
     for name, fn in (
-            ("pallas", lambda: solve_lemke_batch_state_pallas(
+            ("kernel", lambda: solve_lemke_batch_state_pallas(
                 *args, interpret=interp, **kw)),
             ("xla", lambda: solve_lemke_batch_state(*args, **kw))):
         t0 = time.perf_counter()

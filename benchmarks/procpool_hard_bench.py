@@ -1,7 +1,6 @@
 """Process-pool strong-scaling ladder on the DEGENERATE trajectory class
-(VERDICT r4 item 5): 1/2/4 pinned workers over seed-2 robust_avoid T=8
-certificate-ensemble solves — the hard class, not the benign zoo model the
-round-4 single point used.
+1/2/4 pinned workers over seed-2 robust_avoid T=8 certificate-ensemble
+solves — the hard class, not a benign zoo model.
 
 Each job is a complete shared-route solve (EG pre-pass, fused round 0,
 structured-QP rung, audited 1e-8) of an S-lane seed-2 ensemble

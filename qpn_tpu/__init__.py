@@ -1,11 +1,12 @@
-"""qpn_tpu — a TPU-native Quadratic Program Network equilibrium framework.
+"""qpn_tpu — a batched Quadratic Program Network equilibrium framework.
 
 From-scratch JAX/XLA/Pallas re-design of the capabilities of
 ``QuadraticProgramNetworks.jl`` (reference surveyed in /root/repo/SURVEY.md):
 DAGs of quadratic-program "players" (bilevel / trilevel / Nash structures),
 equilibrium computation, and explicit piecewise-polyhedral solution graphs of
 lower levels — with the reference's serial C solvers (PATH, OSQP, cdd)
-replaced by batched TPU kernels.
+replaced by batched accelerator kernels (the GPU in production, the CPU in
+tests).
 """
 
 from . import config  # noqa: F401  -- must be first (enables x64)

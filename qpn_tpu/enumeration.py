@@ -8,7 +8,7 @@ each recipe as one polyhedral piece of the solution map (``local_piece``,
 avi_solutions.jl:390-496), and explore outward through piece vertices
 (``LocalGAVISolutions``, avi_solutions.jl:92-382).
 
-TPU-first re-design decisions:
+Batch-first re-design decisions:
 
 * A recipe is a flat ``tuple[int]`` label assignment (one label 1–8 per row)
   instead of a Dict{Int,Set{Int}} — hashable, and trivially batchable as an

@@ -1,7 +1,7 @@
 """Tensor-native polyhedral geometry (host-side structures).
 
 Re-designs the reference's ``src/sets.jl`` (Slice / BasicPoly / ProjectedPoly /
-IntersectionPoly / PolyUnion hierarchy, sets.jl:68-207) for a TPU-first
+IntersectionPoly / PolyUnion hierarchy, sets.jl:68-207) for a batch-first
 framework:
 
 * A :class:`Poly` is a *dense H-rep tensor* ``l ⋈ A x ⋈ u`` with per-row
@@ -9,8 +9,8 @@ framework:
   sparse ``Slice`` objects.  Rows are normalized exactly like ``Slice``
   (sets.jl:76-89): lexico-positive leading coefficient scaled to +1.
 * Batches of polyhedra are padded to static shapes (see ``batched.py``) so
-  that emptiness / containment / subset checks run as one vmapped kernel on
-  the MXU rather than one OSQP call per query (sets.jl:377-407, 591-655).
+  that emptiness / containment / subset checks run as one vmapped kernel
+  rather than one OSQP call per query (sets.jl:377-407, 591-655).
 * Intersection is row concatenation (the reference's lazy IntersectionPoly,
   sets.jl:132-134, always flattens before vectorize anyway); projection
   provenance (ProjectedPoly.parent, sets.jl:127-130) is carried as per-row

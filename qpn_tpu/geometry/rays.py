@@ -1,7 +1,7 @@
 """Extreme-ray enumeration and unbounded convex hulls.
 
-This closes the one cdd capability the framework had not replaced
-(VERDICT r2 missing #4): the reference's V-representation bridge returns
+This closes the one cdd capability the framework had not replaced:
+the reference's V-representation bridge returns
 and consumes RAYS for unbounded polyhedra (`/root/reference/src/sets.jl:
 439-496` — ``vrep_to_poly`` rebuilds H-reps from points + rays, and
 ``convex_hull`` at `sets.jl:977-1010` works on any union cdd can describe).

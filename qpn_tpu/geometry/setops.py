@@ -303,11 +303,9 @@ def is_empty(poly: Poly, tol: float = 1e-4, x=None) -> bool:
 
 
 def is_empty_batch(polys: Sequence[Poly], tol: float = 1e-4, x=None):
-    """Batched emptiness with optional shared witness point.
-
-    On TPU a fused f32 Pallas projected-subgradient screen
-    (ops/pallas_kernels.feasibility_screen) first harvests cheap witnesses;
-    only unwitnessed polys pay for the exact f64 ε-inflation LP."""
+    """Batched emptiness with optional shared witness point: polys that
+    contain ``x`` are non-empty; the rest pay for the exact f64
+    ε-inflation LP."""
     polys = list(polys)
     need = []
     out = np.zeros(len(polys), dtype=bool)
@@ -316,34 +314,6 @@ def is_empty_batch(polys: Sequence[Poly], tol: float = 1e-4, x=None):
             out[i] = False
         else:
             need.append(i)
-    if need:
-        from ..config import pallas_screen_enabled
-        if pallas_screen_enabled() and len(need) >= 4:
-            sub = [polys[i] for i in need]
-            if len({p.dim for p in sub}) == 1 and not any(
-                    p.strict_l.any() or p.strict_u.any() for p in sub):
-                # Correctness note: the screen can only SKIP exact LPs for
-                # polys whose witness point was host-verified inside
-                # feasibility_screen — a buggy kernel cannot flip emptiness
-                # results, it can only waste the screen.  Crashes are
-                # logged + counted, never silently swallowed.
-                try:
-                    from ..ops.pallas_kernels import feasibility_screen
-                    # margin = the caller's tol: the exact decision is
-                    # "empty iff eps* > tol", so a witness may skip the LP
-                    # only when its violation is within THAT tolerance —
-                    # a looser default would flip boundary verdicts
-                    witnessed, _ = feasibility_screen(
-                        sub, x0=None if x is None else
-                        np.asarray(x)[: sub[0].dim], margin=tol)
-                    need = [i for i, w in zip(need, witnessed) if not w]
-                except Exception as err:
-                    import logging
-                    from ..utils.metrics import METRICS
-                    METRICS.bump("pallas_screen_errors")
-                    logging.getLogger("qpn_tpu").warning(
-                        "pallas feasibility screen failed (%s); falling "
-                        "back to exact LPs", err)
     if need:
         # tol forwarded to the ε-inflation decision (reference parity:
         # sets.jl:646-655 passes isempty's tol through to exemplar)

@@ -2,7 +2,7 @@
 
 The reference enumerates *all* vertices of a piece-slice through cdd
 (sets.jl:439-451) and then explores at most ``exploration_vertices`` of them
-(avi_solutions.jl:277-321).  On TPU we invert the economics: vertices are
+(avi_solutions.jl:277-321).  Batched, we invert the economics: vertices are
 *sampled* as a single batch of LPs with random objectives (every LP optimum of
 a pointed polytope is a vertex), polished onto the active set, and deduped by
 the reference's own 5-digit quantization.  A batch of K objectives is one

@@ -1,5 +1,5 @@
 """Problem zoo — the reference's ``examples/`` loaded into the package
-(QuadraticProgramNetworks.jl:29-31), plus TPU-scale stress configs.
+(QuadraticProgramNetworks.jl:29-31), plus accelerator-scale stress configs.
 
 ``setup(name, **kwargs)`` mirrors the reference's ``setup(::Val{name})``
 convention (programs.jl:139-141)."""

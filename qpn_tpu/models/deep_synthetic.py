@@ -1,4 +1,4 @@
-"""Deep synthetic QPNet — multi-level stress config (BASELINE.json config 5).
+"""Deep synthetic QPNet — multi-level stress config.
 
 An L-level chain (optionally W nodes wide per level) of strongly convex
 tracking QPs: node (ℓ, i) owns a 2-vector and tracks an affine function of its

@@ -3,7 +3,7 @@
 Behavioral reference: examples/deprecated/robust_avoid.jl (T-step trajectory
 with double-integrator dynamics, per-obstacle adversaries and separation
 certificates).  The deprecated Julia file calls removed APIs; this module is a
-from-scratch TPU-scale restatement:
+from-scratch batch-scale restatement:
 
 * ego drives a T-step double-integrator trajectory toward +x, dynamics as
   equality constraints (the block-banded KKT structure of
@@ -13,7 +13,7 @@ from-scratch TPU-scale restatement:
   robust_avoid_simple);
 * scenario batching: :func:`scenario_batch_gavis` emits the per-node KKT
   GAVIs of S independent scenarios as padded ``(S·nodes, n, n)`` tensors —
-  the batch axis the TPU bench and the multi-chip scenario sharding consume.
+  the batch axis the bench and the multi-card scenario sharding consume.
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ def setup(T: int = 3, num_obj: int = 1, num_poly_faces: int = 4,
     """T-step, num_obj-obstacle robust avoidance QPNet.
 
     Level structure: ego (all ue[·]) → adversaries (uo[·,k]) → certificates
-    (s, ϵ).  Sizes stay per-node small (TPU batches supply the scale)."""
+    (s, ϵ).  Sizes stay per-node small (batches supply the scale)."""
     rng = np.random.default_rng(seed)
 
     Ae, be = _poly_faces(rng, num_poly_faces)
@@ -131,7 +131,7 @@ def hard_chunk_job(S: int, T: int, num_obj: int, pf: int, seed: int,
     """One procpool work unit of the DEGENERATE trajectory class: build the
     seed's scenario certificate ensemble and solve it end-to-end through
     the shared route (seed 2 at T=8/num_obj=4 is the dual-degenerate-heavy
-    class the δ-ladder cannot certify — BASELINE.md hard-seed analysis).
+    class the δ-ladder cannot certify).
     Module-level so :func:`qpn_tpu.parallel.procpool.map_processes` can
     ship it to spawned workers by reference.  Returns
     (converged_frac, max_resid, |z|-checksum) — the checksum lets the

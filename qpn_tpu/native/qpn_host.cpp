@@ -1,6 +1,6 @@
 // Native host-side kernels for the enumeration bookkeeping.
 //
-// The TPU executes all numeric math (ops/, geometry/setops); what remains on
+// The accelerator executes the numeric math (ops/, geometry/setops); what remains on
 // host is combinatorial: expanding complementarity-label products into
 // recipe tensors (avi_solutions.jl:200-215's all_Ks) and quantized row
 // hashing for piece/vertex dedup (the reference's 5-digit rounding,

@@ -3,8 +3,8 @@ parallel analogue (SURVEY.md §5 "long-context"): trajectory-horizon KKT
 systems (robust_avoid's T-step dynamics, deprecated/robust_avoid.jl:72-83)
 factor as block-banded matrices.  A serial Thomas sweep is O(T) sequential;
 cyclic reduction runs in O(log T) parallel levels of batched small-block
-solves — each level is one fused set of (B, T, k, k) einsums/solves on the
-MXU, and the level loop is a host-unrolled log₂T sequence (static shapes).
+solves — each level is one fused set of (B, T, k, k) einsums/solves, and
+the level loop is a host-unrolled log₂T sequence (static shapes).
 
 System:  A_t x_{t-1} + B_t x_t + C_t x_{t+1} = b_t,  t = 0..T-1
 (A_0 = C_{T-1} = 0).  Blocks are general (QR-solved); SPD KKT diagonals work

@@ -1,36 +1,37 @@
-"""Pallas-fused batched Lemke pivot loop (TPU kernel for the hot engine).
+"""Fused Lemke pivot loop for the GPU: one Pallas program per lane, via Triton.
 
-The XLA route (ops/lemke.py, ``vmap(_lemke_single)``) expresses each pivot
-as a stream of small HLO ops inside a ``lax.while_loop``; on TPU every
-per-lane dynamic row/column selection lowers to a gather and the tableau
-makes a full HBM round-trip per op, so a 60–80-pivot solve is dominated by
-per-iteration latency, not arithmetic (BASELINE.md: MFU ~2e-5; "further
-wins must come from kernel fusion").
+The XLA route (ops/lemke.py, ``vmap(_lemke_single)``) runs each pivot as a
+chain of small kernels inside a ``lax.while_loop`` whose predicate the host
+reads back every iteration, plus a nested tie-break loop; a 60–80-pivot
+solve is then bound by launches and synchronisation, not arithmetic.
 
-This module fuses the ENTIRE pivot loop into one Pallas kernel:
+Here the whole almost-complementary path of one lane runs inside one
+Pallas program (``backend="triton"``):
 
-* the batch is processed in host-chunked ``pallas_call`` invocations of
-  TB lanes each (per-tile BlockSpec grids fail Mosaic legalization for
-  this kernel; identical chunks share one Mosaic binary); each invocation
-  keeps its lanes' tableaus — variable columns ``(TB, n, 3n+1)`` plus a
-  separate rhs column ``(TB, n)`` — resident in VMEM for the whole
-  almost-complementary path, zero HBM traffic between pivots;
-* all per-lane dynamic indexing (entering column, pivot row, basis
-  bookkeeping) is rewritten as one-hot masked reductions over the tiled
-  tableau — VPU-friendly, no TPU gathers;
-* lanes advance in lockstep with per-lane done masks, exactly like the XLA
-  route, so the two engines follow the same pivot path (same covering
-  rule, same lexicographic tie-break, same status discipline).
+* grid = one program per lane — lanes share no state, so the programs run
+  independently on the streaming multiprocessors with no cross-block
+  communication;
+* the lane's tableau is padded to powers of two, ``(NP, WP)`` with
+  ``NP = next_pow2(n)`` and ``WP = next_pow2(3n+1)`` (variable columns
+  z|u|v|t; the rhs column rides separately), and is carried through an
+  in-kernel ``lax.while_loop`` in registers — at n=38 that is a (64, 128)
+  f32 tile, 32 KB;
+* the entering column, ratio test and lexicographic tie-break are masked
+  reductions over that tile (Triton has no dynamic gather), with padded
+  rows made inert (zero column, ``theta = inf``);
+* the pivot rule is the XLA lane's, step for step (same covering rule,
+  tie-break, status and pivot-count discipline), so the two engines follow
+  the same path up to f32 summation order.
 
-The kernel is the f32 pivot tier of the mixed-precision pattern
-(BASELINE.md round-2): pivot the path in f32, then land machine-precision
-values by refactorizing the terminal complementary basis against the
-original f64 data on host (``lemke.refactor_batch_np``).  Reference
-semantics: PATH's pivoting core (``/root/reference/src/avi.jl:63-77``;
-prior art ``deprecated/avi_scratch.jl:17-134``).
+The kernel is the f32 pivot tier of the mixed-precision pattern: exact
+values are landed afterwards by refactorising the terminal basis against
+the original f64 data (``lemke.refactor_batch_np``).  Reference semantics:
+PATH's pivoting core (the reference's ``src/avi.jl:63-77``; prior art
+``deprecated/avi_scratch.jl:17-134``).
 
-CPU correctness testing uses ``interpret=True`` (tests/test_lemke_pallas.py);
-the production route gates on the TPU backend (config.lemke_kernel).
+``interpret=True`` runs the kernel through the Pallas interpreter — the CPU
+test path; production callers never pass it (see
+``lemke.solve_lemke_batch_state_auto``).
 """
 
 from __future__ import annotations
@@ -42,404 +43,262 @@ import jax.numpy as jnp
 import numpy as np
 
 from .lemke import (LEMKE_MAX, LEMKE_RAY, LEMKE_SINGULAR, LEMKE_SUCCESS,
-                    _lemke_setup)
+                    _lemke_extract, _lemke_setup)
 
-_INF = np.inf
-
-
-import os
-
-# Mosaic's default scoped-vmem stack limit is 16MB; v5e has 128MB VMEM.
-# Raising the limit lets the lane tile grow (fewer chunked kernel launches,
-# more VPU lanes per pivot).  Both knobs are env-tunable for measurement.
-_VMEM_LIMIT = int(os.environ.get("QPN_LEMKE_VMEM", 96 << 20))
-_TB_OVERRIDE = int(os.environ.get("QPN_LEMKE_TB", 0))
+# Largest AVI dimension the kernel takes.  At n=64 the padded tableau is
+# (64, 256) f32 = 64 KB, a quarter of one SM's 256 KB register file, which
+# leaves room for the rank-1 update's temporaries at 16 warps; beyond it the
+# next power of two (128 rows) would spill to local memory, and the XLA
+# route takes the batch instead.
+LEMKE_KERNEL_MAX_N = 64
 
 
-def _pick_tile(B: int, n: int, W: int, itemsize: int = 4,
-               budget_bytes: int = 0, live_copies: int = 12) -> int:
-    """Largest power-of-two lane tile that keeps the pivot loop's live
-    tableau-sized buffers inside the scoped-VMEM stack limit.  Mosaic
-    stack-allocates roughly a dozen (TB, n, W) temporaries per iteration
-    (carry double-buffer, the rank-1 update products, the masked column
-    selects) — measured: at the default 16MB limit the 2-copy model OOMs
-    at n=38/TB=128, the 12-copy model compiles."""
-    if _TB_OVERRIDE:
-        return min(_TB_OVERRIDE, B)
-    if not budget_bytes:
-        budget_bytes = (3 * _VMEM_LIMIT) // 4   # headroom for operand refs
-    # budget-limited tile, independent of B (batch alignment is handled by
-    # padding at the call site)
-    tb = 1
-    while tb < 32 and (live_copies * 2 * (2 * tb) * n * W * itemsize
-                       <= budget_bytes):
-        tb *= 2
-    if tb < 8:
-        # sub-8 sublane tiles hit the same Mosaic miscompile class as the
-        # (1, n) shapes; a tableau too big for an 8-lane tile belongs on
-        # the XLA route (the auto dispatcher memoizes the fallback)
-        raise ValueError(
-            f"lemke_pallas: n={n} tableau does not fit an 8-lane VMEM tile "
-            f"(limit {budget_bytes >> 20}MB)")
-    # measured sweep at n=38, B=256 (v5e): TB 8/16/32/64/128 →
-    # 1645/1638/1718/1622/1351 solves/s — launch overhead is negligible on
-    # the 8–64 plateau while big tiles pay lockstep waste (every lane in a
-    # chunk spins until the chunk's slowest pivot path finishes); cap at 32
-    return tb
+def _pow2(x: int) -> int:
+    return 1 << max(0, int(x) - 1).bit_length()
 
 
-def _onehot_eq(iota, idx):
-    """(TB, K) bool mask: position == per-lane index (idx: (TB, 1))."""
-    return iota == idx
+def kernel_shape(n: int) -> tuple[int, int]:
+    """Padded (rows, variable columns) of one lane's tableau in the kernel."""
+    return _pow2(n), _pow2(3 * n + 1)
 
 
-def _gather(arr, onehot, zero):
-    """Per-lane scalar gather as a masked reduction: arr (TB,K) -> (TB,1).
-
-    Integer arrays reduce through f32 (Mosaic rejects some integer
-    reduction kinds; every integer here is a variable id < 3n+2, exact in
-    f32) and the result is cast back."""
-    if jnp.issubdtype(arr.dtype, jnp.integer):
-        s = jnp.sum(jnp.where(onehot, arr, zero).astype(jnp.float32),
-                    axis=1, keepdims=True)
-        return s.astype(arr.dtype)
-    return jnp.sum(jnp.where(onehot, arr, zero), axis=1, keepdims=True,
-                   dtype=arr.dtype)
+def _num_warps(NP: int, WP: int) -> int:
+    # about 32 tableau elements per thread: 4 warps for the smallest tiles,
+    # 8 at n=38 (4, 8 and 16 measured within 6% of each other there on the
+    # H100), 16 at the (64, 256) ceiling
+    return int(min(16, max(4, (NP * WP) // 1024)))
 
 
-def _argtrue(mask, iota_n, n):
-    """Index of the first True per lane (n when none): (TB, n) -> (TB, 1).
-    Reduces in f32 (exact for the small n here) for Mosaic portability."""
-    m = jnp.min(jnp.where(mask, iota_n, n).astype(jnp.float32),
-                axis=1, keepdims=True)
-    return m.astype(jnp.int32)
-
-
-def _make_kernel(n: int, max_pivots: int, tol: float, piv_tol: float):
-    # The tableau rides as TWO arrays — the variable columns Tv (TB, n,
-    # 3n+1: z|u|v|t) and the rhs column (TB, n) — because Mosaic rejects
-    # static single-lane extraction / minor-dim slicing of a 3D array
-    # (T[:, :, -1], T[:, :, :W1]); split, every op is a full-array
-    # elementwise/broadcast/reduce the compiler handles natively.
-    W1 = 3 * n + 1
+def _make_kernel(n: int, NP: int, WP: int, max_pivots: int, tol: float,
+                 piv_tol: float):
     T_ID = 3 * n
+    f32 = jnp.float32
 
     def kernel(Tv_ref, rhs_ref, basis_ref, val_ref, blb_ref, bub_ref,
-               vlb_ref, vub_ref, leff_ref, ueff_ref, ent_ref, dir_ref,
-               ev_ref, st_ref, xB_out, basis_out, val_out, piv_out,
-               st_out):
-        TB = Tv_ref.shape[0]
-        dt = Tv_ref.dtype
-        # Mosaic only lowers 32-bit scalars: every Python literal below is
-        # dtype-pinned so no weak-typed f64/i64 constant enters the kernel
-        # (with jax_enable_x64 a bare `0.0`/`n` would trace as 64-bit)
-        inf = jnp.asarray(_INF, dt)
-        zero = jnp.asarray(0.0, dt)
-        one = jnp.asarray(1.0, dt)
-        tolc = jnp.asarray(tol, dt)
-        ptol = jnp.asarray(piv_tol, dt)
-        lexeps = jnp.asarray(1e-12, dt)   # matches the XLA engine exactly
+               vlb_ref, vub_ref, leff_ref, ueff_ref, lane_i_ref, lane_f_ref,
+               xB_out, basis_out, val_out, lane_out):
+        # every constant is pinned to 32 bits: under jax_enable_x64 a bare
+        # Python int would trace as int64, which the kernel must not carry
+        inf = f32(np.inf)
+        zero, one = f32(0.0), f32(1.0)
+        tolc, ptol, lexeps = f32(tol), f32(piv_tol), f32(1e-12)
         i0, i1 = jnp.int32(0), jnp.int32(1)
         ni, n2i, tid = jnp.int32(n), jnp.int32(2 * n), jnp.int32(T_ID)
-        mpiv = jnp.int32(max_pivots)
-        s_ray = jnp.int32(LEMKE_RAY)
-        s_sing = jnp.int32(LEMKE_SINGULAR)
-        s_succ = jnp.int32(LEMKE_SUCCESS)
-        s_max = jnp.int32(LEMKE_MAX)
-        iota_n = jax.lax.broadcasted_iota(jnp.int32, (TB, n), 1)
-        iota_w1 = jax.lax.broadcasted_iota(jnp.int32, (TB, W1), 1)
+        iota_r = jax.lax.broadcasted_iota(jnp.int32, (NP,), 0)
+        iota_w = jax.lax.broadcasted_iota(jnp.int32, (WP,), 0)
+        iota_2 = jax.lax.broadcasted_iota(jnp.int32, (2,), 0)
+
+        def pick(vec, oh):
+            """vec[idx] as a masked reduction (oh = one-hot of idx)."""
+            return jnp.sum(jnp.where(oh, vec, jnp.zeros_like(vec)),
+                           dtype=vec.dtype)
 
         vlb = vlb_ref[...]
         vub = vub_ref[...]
         leff = leff_ref[...]
         ueff = ueff_ref[...]
+        lane_i = lane_i_ref[...]
+        lane_f = lane_f_ref[...]
 
         def cond(c):
-            _T, _r, _b, _v, _bl, _bu, _e, _d, _ev, _p, st, kg = c
-            # scalar bool/int reductions trip Mosaic (reduce_or builds an
-            # f64 scalar under x64; some integer reduction kinds are
-            # rejected outright) — reduce in f32, exact for these values
-            return (kg < mpiv) & (jnp.min(st.astype(jnp.float32))
-                                  == jnp.float32(0))
+            return (c[-2] < max_pivots) & (c[-1] == i0)
 
         def body(c):
-            Tv, rhs, basis, val, blb, bub, ent, edir, ev, piv, st, kg = c
-            active = st == i0                             # (TB, 1)
-
-            # entering variable temporarily carries its start value
-            oh_e1 = _onehot_eq(iota_w1, ent)              # (TB, W1)
-            val_i = jnp.where(oh_e1 & active, ev, val)
-
-            # basic values: rhs − Tv @ nonbasic values
-            xB = rhs - jnp.sum(Tv * val_i[:, None, :], axis=2)  # (TB, n)
-
-            # entering column and ratio test
-            colT = jnp.sum(jnp.where(oh_e1[:, None, :], Tv, zero), axis=2)
-            d = edir * colT                               # (TB, n)
+            Tv, rhs, basis, val, blb, bub, ent, edir, ev, k, st = c
+            # the entering variable carries its start value
+            oh_e = iota_w == ent
+            val = jnp.where(oh_e, ev, val)
+            xB = rhs - jnp.sum(Tv * val[None, :], axis=1)
+            colT = jnp.sum(jnp.where(oh_e[None, :], Tv, zero), axis=1)
+            d = edir * colT
             theta = jnp.where(
                 d > ptol, (xB - blb) / jnp.where(d > ptol, d, one),
                 jnp.where(d < -ptol,
-                          (xB - bub) / jnp.where(d < -ptol, d, one),
-                          inf))
-            theta = jnp.maximum(jnp.where(jnp.isnan(theta), inf, theta),
-                                zero)
-            ent_lb = _gather(vlb, oh_e1, zero)
-            ent_ub = _gather(vub, oh_e1, zero)
+                          (xB - bub) / jnp.where(d < -ptol, d, one), inf))
+            theta = jnp.maximum(jnp.where(theta != theta, inf, theta), zero)
+            ent_lb = pick(vlb, oh_e)
+            ent_ub = pick(vub, oh_e)
             theta_e = jnp.where(edir > zero, ent_ub - ev, ev - ent_lb)
-            tstar = jnp.min(theta, axis=1, keepdims=True)
+            tstar = jnp.min(theta)
 
             is_ray = ~jnp.isfinite(tstar) & ~jnp.isfinite(theta_e)
             do_flip = ~is_ray & (theta_e <= tstar)
-
-            # ---- bound flip branch (no basis change) ----------------------
             i_e = ent % ni
             flip_newval = jnp.where(edir > zero, ent_ub, ent_lb)
-            flip_entering = jnp.where(edir > zero, n2i + i_e, ni + i_e)
+            flip_ent = jnp.where(edir > zero, n2i + i_e, ni + i_e)
 
-            # ---- pivot row selection --------------------------------------
+            # pivot row: ratio-test ties, t first, then lexicographic
+            # refinement over the -B^-1 block (the u-columns); the loop
+            # runs zero iterations for the typical unique minimum
             tie = theta <= tstar + tolc * (one + jnp.abs(tstar))
-            t_row = basis == tid                          # (TB, n)
-            pick_t = jnp.sum((tie & t_row).astype(dt), axis=1,
-                             keepdims=True) > zero
+            t_tie = tie & (basis == tid)
+            pick_t = jnp.max(t_tie.astype(jnp.int32)) > i0
             safe_d = jnp.where(jnp.abs(d) > ptol, d, one)
-
-            # lexicographic refinement over the −B⁻¹ (u-column) block;
-            # early-exit: the typical pivot has a unique minimum ratio.
-            # Mask carries ride as 0/1 floats — Mosaic rejects boolean
-            # while_loop carries (measured: "unsupported target bitwidth
-            # for truncation")
-            half = jnp.asarray(0.5, dt)
+            need_lex = ~is_ray & ~do_flip & ~pick_t
 
             def lex_cond(lc):
-                kk, cand_f, need_f = lc
-                return (kk < ni) & (jnp.max(need_f) > zero)
+                kk, cand = lc
+                n_cand = jnp.sum(cand.astype(jnp.int32), dtype=jnp.int32)
+                return need_lex & (kk < ni) & (n_cand > i1)
 
             def lex_body(lc):
-                # all mask algebra in 0/1 floats: boolean-VALUED selects
-                # (jnp.where over i1 operands) are the other construct
-                # Mosaic rejects ("unsupported target bitwidth for
-                # truncation"); bool appears only as compare + condition
-                kk, cand_f, need_f = lc
-                col = jnp.sum(jnp.where(
-                    _onehot_eq(iota_w1, jnp.full((TB, 1), n, jnp.int32)
-                               + kk)[:, None, :], Tv, zero),
-                    axis=2)                               # Tv[:, :, n+kk]
-                key = jnp.where(cand_f > half, -col / safe_d, inf)
-                kmin = jnp.min(key, axis=1, keepdims=True)
-                keep_f = cand_f * (key <= kmin + lexeps
-                                   * (one + jnp.abs(kmin))).astype(dt)
-                cand_f = jnp.where(need_f > half, keep_f, cand_f)
-                need_f = need_f * (jnp.sum(cand_f, axis=1,
-                                           keepdims=True) > one).astype(dt)
-                return kk + i1, cand_f, need_f
+                kk, cand = lc
+                col = jnp.sum(jnp.where((iota_w == ni + kk)[None, :], Tv,
+                                        zero), axis=1)
+                key = jnp.where(cand, -col / safe_d, inf)
+                kmin = jnp.min(key)
+                return kk + i1, cand & (key <= kmin + lexeps
+                                        * (one + jnp.abs(kmin)))
 
-            need0 = (active & ~pick_t & ~do_flip & ~is_ray
-                     & (jnp.sum(tie.astype(dt), axis=1,
-                                keepdims=True) > one))
-            _, cand_f, _ = jax.lax.while_loop(
-                lex_cond, lex_body,
-                (i0, tie.astype(dt), need0.astype(dt)))
-            cand = cand_f > half
-            jstar = jnp.where(pick_t, _argtrue(tie & t_row, iota_n, ni),
-                              _argtrue(cand, iota_n, ni))
-            oh_j = _onehot_eq(iota_n, jstar)              # (TB, n)
-            piv_elt = _gather(colT, oh_j, zero)
-            bad_piv = jnp.abs(piv_elt) < ptol
+            _, cand = jax.lax.while_loop(lex_cond, lex_body, (i0, tie))
+            row_mask = jnp.where(pick_t, t_tie, cand)
+            jstar = jax.lax.argmax(row_mask.astype(jnp.int32), 0, jnp.int32)
+            oh_j = iota_r == jstar
+            piv = pick(colT, oh_j)
+            bad_piv = jnp.abs(piv) < ptol
+            exiting = pick(basis, oh_j)
+            hit_lower = pick(d, oh_j) > zero
+            oh_x = iota_w == exiting
+            exit_val = jnp.where(hit_lower, pick(vlb, oh_x), pick(vub, oh_x))
 
-            exiting = _gather(basis, oh_j, i0)
-            hit_lower = _gather(d, oh_j, zero) > zero
-            oh_x1 = _onehot_eq(iota_w1, exiting)          # (TB, W1)
-            exit_val = jnp.where(hit_lower, _gather(vlb, oh_x1, zero),
-                                 _gather(vub, oh_x1, zero))
-
-            # ---- rank-1 tableau update ------------------------------------
-            # 3D masks ride as 0/1 floats and blend arithmetically: a bool
-            # minor-dim insert (oh_j[:, :, None]) is "only supported for
-            # 32-bit types" in Mosaic
-            ohjf = oh_j.astype(dt)
-            ohj3 = ohjf[:, :, None]                       # (TB, n, 1) f32
-            # guarded divisor: bad_piv lanes still COMPUTE a (finite,
-            # discarded) update — the arithmetic blend below, unlike a
-            # bool select, would propagate 0·inf = NaN into kept lanes
-            piv_safe = jnp.where(jnp.abs(piv_elt) > ptol, piv_elt, one)
-            pr_v = jnp.sum(Tv * ohj3, axis=1) / piv_safe  # (TB, W1)
-            pr_r = _gather(rhs, oh_j, zero) / piv_safe    # (TB, 1)
+            # rank-1 update (guarded divisor: a bad pivot's update is
+            # computed and discarded, and must stay finite)
+            piv_safe = jnp.where(bad_piv, one, piv)
+            pr = jnp.sum(jnp.where(oh_j[:, None], Tv, zero), axis=0) / piv_safe
+            pr_r = pick(rhs, oh_j) / piv_safe
             other = jnp.where(oh_j, zero, colT)
-            Tv_piv = Tv - other[:, :, None] * pr_v[:, None, :]
-            Tv_piv = Tv_piv * (one - ohj3) + pr_v[:, None, :] * ohj3
-            rhs_piv = rhs - other * pr_r
-            rhs_piv = jnp.where(oh_j, pr_r, rhs_piv)
+            Tv_piv = jnp.where(oh_j[:, None], pr[None, :],
+                               Tv - other[:, None] * pr[None, :])
+            rhs_piv = jnp.where(oh_j, pr_r, rhs - other * pr_r)
+            val_piv = jnp.where(oh_e, zero, jnp.where(oh_x, exit_val, val))
 
-            basis_piv = jnp.where(oh_j, ent, basis)
-            val_piv = jnp.where(oh_x1, exit_val, val_i)
-            val_piv = jnp.where(oh_e1, zero, val_piv)
-            blb_piv = jnp.where(oh_j, ent_lb, blb)
-            bub_piv = jnp.where(oh_j, ent_ub, bub)
-            t_exits = exiting == tid
-
-            # ---- Lemke rule: complement of the exiting variable drives ----
+            # Lemke rule: the complement of the exiting variable drives next
             i_x = exiting % ni
-            oh_ix = _onehot_eq(iota_n, i_x)
-            l_i = _gather(leff, oh_ix, zero)
-            u_i = _gather(ueff, oh_ix, zero)
+            oh_ix = iota_r == i_x
+            l_i, u_i = pick(leff, oh_ix), pick(ueff, oh_ix)
             is_z = exiting < ni
             is_u = (exiting >= ni) & (exiting < n2i)
             at_l = jnp.abs(exit_val - l_i) <= jnp.abs(exit_val - u_i)
-            nent = jnp.where(is_z, jnp.where(at_l, ni + i_x, n2i + i_x),
-                             i_x)
+            nent = jnp.where(is_z, jnp.where(at_l, ni + i_x, n2i + i_x), i_x)
             ndir = jnp.where(is_z | is_u, one, -one)
             nev = jnp.where(is_z, zero, jnp.where(is_u, l_i, u_i))
 
-            do_pivot = active & ~is_ray & ~do_flip & ~bad_piv
-            updf3 = do_pivot.astype(dt)[:, :, None]       # (TB,1,1) f32
-            Tv = Tv + updf3 * (Tv_piv - Tv)
+            do_pivot = ~is_ray & ~do_flip & ~bad_piv
+            Tv = jnp.where(do_pivot, Tv_piv, Tv)
             rhs = jnp.where(do_pivot, rhs_piv, rhs)
-            basis = jnp.where(do_pivot, basis_piv, basis)
-            blb = jnp.where(do_pivot, blb_piv, blb)
-            bub = jnp.where(do_pivot, bub_piv, bub)
-            val_flip = jnp.where(oh_e1, flip_newval, val_i)
+            upd = do_pivot & oh_j
+            basis = jnp.where(upd, ent, basis)
+            blb = jnp.where(upd, ent_lb, blb)
+            bub = jnp.where(upd, ent_ub, bub)
             val = jnp.where(do_pivot, val_piv,
-                            jnp.where(active & do_flip, val_flip,
-                                      jnp.where(active, val_i, val)))
-            ent = jnp.where(do_pivot, nent,
-                            jnp.where(active & do_flip, flip_entering, ent))
-            edir = jnp.where(do_pivot, ndir,
-                             jnp.where(active & do_flip, one, edir))
-            ev = jnp.where(do_pivot, nev,
-                           jnp.where(active & do_flip, zero, ev))
-            st = jnp.where(active & is_ray, s_ray,
-                           jnp.where(active & ~do_flip & bad_piv & ~is_ray,
-                                     s_sing,
-                                     jnp.where(do_pivot & t_exits,
-                                               s_succ, st)))
-            # pivot-count parity with the numpy oracle / C++ port: a ray or
-            # singular termination performs NO pivot, so the counter must
-            # not advance on the terminating iteration
-            piv = piv + (active & ~is_ray
-                         & (do_flip | ~bad_piv)).astype(jnp.int32)
-            return (Tv, rhs, basis, val, blb, bub, ent, edir, ev, piv, st,
-                    kg + i1)
+                            jnp.where(do_flip & oh_e, flip_newval, val))
+            ent_n = jnp.where(do_pivot, nent, jnp.where(do_flip, flip_ent,
+                                                        ent))
+            edir = jnp.where(do_pivot, ndir, jnp.where(do_flip, one, edir))
+            ev = jnp.where(do_pivot, nev, jnp.where(do_flip, zero, ev))
+            singular = ~do_flip & bad_piv
+            st = jnp.where(is_ray, jnp.int32(LEMKE_RAY),
+                           jnp.where(singular, jnp.int32(LEMKE_SINGULAR),
+                                     jnp.where(do_pivot & (exiting == tid),
+                                               jnp.int32(LEMKE_SUCCESS), st)))
+            # a ray or singular termination performs no pivot (pivot-count
+            # parity with the XLA lane and the host oracle)
+            k = jnp.where(is_ray | singular, k, k + i1)
+            return Tv, rhs, basis, val, blb, bub, ent_n, edir, ev, k, st
 
-        # counter starts at 1 like the XLA lane (lemke.py state0): both
-        # engines execute at most max_pivots-1 body iterations, so pivot
-        # counts and budget-limited statuses agree lane-for-lane
         c0 = (Tv_ref[...], rhs_ref[...], basis_ref[...], val_ref[...],
-              blb_ref[...], bub_ref[...], ent_ref[...], dir_ref[...],
-              ev_ref[...], jnp.zeros_like(st_ref[...]), st_ref[...],
-              jnp.int32(1))
-        Tv, rhs, basis, val, _bl, _bu, ent, edir, ev, piv, st, _kg = \
-            jax.lax.while_loop(cond, body, c0)
-        st = jnp.where(st == jnp.int32(0), s_max, st)
-
-        # terminal basic values from the final tableau (the f64 host
-        # refactorization recomputes exact ones; this covers fallbacks)
-        xB = rhs - jnp.sum(Tv * val[:, None, :], axis=2)
-        xB_out[...] = xB
+              blb_ref[...], bub_ref[...], pick(lane_i, iota_2 == 0),
+              pick(lane_f, iota_2 == 0), pick(lane_f, iota_2 == 1), i1,
+              pick(lane_i, iota_2 == 1))
+        Tv, rhs, basis, val, _, _, _, _, _, k, st = jax.lax.while_loop(
+            cond, body, c0)
+        st = jnp.where(st == i0, jnp.int32(LEMKE_MAX), st)
+        xB_out[...] = rhs - jnp.sum(Tv * val[None, :], axis=1)
         basis_out[...] = basis
         val_out[...] = val
-        piv_out[...] = piv
-        st_out[...] = st
+        lane_out[...] = jnp.where(iota_2 == 0, k, st)
 
     return kernel
 
 
+def _pad(a, shape, fill):
+    """Pad the trailing axes of ``a`` up to ``shape`` with ``fill``."""
+    return jnp.pad(a, [(0, t - s) for s, t in zip(a.shape, shape)],
+                   constant_values=fill)
+
+
 @functools.partial(jax.jit,
-                   static_argnames=("tol", "piv_tol", "max_pivots",
-                                    "synth_scale", "cover", "interpret"))
+                   static_argnames=("tol", "piv_tol", "max_pivots", "cover",
+                                    "interpret"))
 def solve_lemke_batch_state_pallas(M, q, l, u, z0, var_mask, tol=1e-9,
                                    piv_tol=1e-11, max_pivots: int = 512,
                                    synth_scale=1e4, cover: str = "viol",
                                    interpret: bool = False):
     """Drop-in for :func:`lemke.solve_lemke_batch_state` backed by the fused
-    Pallas pivot kernel.  Returns ``(z, status, pivots, basis, val)``.
+    pivot kernel; float32 only, ``n <= LEMKE_KERNEL_MAX_N``.  Returns
+    ``(z, status, pivots, basis, val)``.
 
-    Setup (synthetic boxes, slack basis, covering pivot) and the final z
-    extraction run as plain batched JAX outside the kernel; only the pivot
-    loop — the latency-bound part — is fused.  The on-device QR terminal
-    refactorization of the XLA route is intentionally omitted: every
-    production caller lands exact values via the host f64 refactorization
-    (``refactor_batch_np``), and uncertified lanes re-pivot in f64.
-    """
+    Setup (synthetic boxes, slack basis, covering pivot) and the terminal
+    extraction (QR refactorisation, z assembly) are the XLA lane's own
+    functions; only the pivot loop runs in the kernel."""
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as plgpu
 
     B, n = q.shape
-    dt = q.dtype
-    W = 3 * n + 2
+    if q.dtype != jnp.float32:
+        raise TypeError(f"lemke pivot kernel is float32-only, got {q.dtype}")
+    if n > LEMKE_KERNEL_MAX_N:
+        raise ValueError(f"lemke pivot kernel takes n <= {LEMKE_KERNEL_MAX_N}"
+                         f", got n={n}")
+    NP, WP = kernel_shape(n)
     W1 = 3 * n + 1
+    init = jax.vmap(functools.partial(
+        _lemke_setup, tol=tol, synth_scale=synth_scale, cover=cover))(
+        M, q, l, u, z0, var_mask)
 
-    setup = jax.vmap(functools.partial(
-        _lemke_setup, tol=tol, synth_scale=synth_scale, cover=cover))
-    init = setup(M, q, l, u, z0, var_mask)
-
-    solved = init.solved_at_start[:, None]
-    T_in = jnp.where(solved[..., None], init.T0t, init.T1)
-    Tv_in = T_in[:, :, :W1]                    # variable columns z|u|v|t
-    rhs_in = T_in[:, :, W1]                    # rhs column, separate 2D
-    basis_in = jnp.where(solved, init.basis0, init.basis1).astype(jnp.int32)
-    blb_in = jnp.take_along_axis(init.var_lb, basis_in, axis=1)
-    bub_in = jnp.take_along_axis(init.var_ub, basis_in, axis=1)
-
-    # Lane-tile the batch by CHUNKED pallas_call invocations rather than a
-    # grid: per-tile (TB,1) BlockSpecs fail Mosaic legalization
-    # ("func.return"), while the identical kernel compiles and runs clean
-    # with whole-array refs.  Chunks share one Mosaic binary (identical
-    # kernel + shapes); VMEM stays bounded by the tile budget.
-    # Non-multiple batches are PADDED up to the tile (lane-0 copies, results
-    # sliced off) — shrinking the tile instead would reintroduce the (1, n)
-    # reduction shapes Mosaic miscompiles; the tile choice minimizes padded
-    # lanes, tie-broken toward fewer launches.
-    TB = _pick_tile(B, n, W, np.dtype(dt).itemsize)
-    if B % TB:
-        TB, _ = min(((tb, -(-B // tb) * tb) for tb in (8, 16, 32)
-                     if tb <= TB), key=lambda t: (t[1], -t[0]),
-                    default=(TB, 0))
-    Bpad = -(-B // TB) * TB
-
-    kernel = _make_kernel(n, max_pivots, float(tol), float(piv_tol))
-
-    def lane(a):
-        return jnp.reshape(a, (B, 1))
-    operands = (Tv_in, rhs_in, basis_in, init.val0, blb_in, bub_in,
-                init.var_lb, init.var_ub, init.l_eff, init.u_eff,
-                lane(init.ent0).astype(jnp.int32),
-                lane(init.dir0).astype(dt), lane(init.ev0).astype(dt),
-                lane(init.status_init).astype(jnp.int32))
-    if Bpad != B:
-        operands = tuple(
-            jnp.concatenate([a, jnp.broadcast_to(a[:1],
-                                                 (Bpad - B,) + a.shape[1:])],
-                            axis=0) for a in operands)
-    call = pl.pallas_call(
-        kernel,
-        out_shape=[
-            jax.ShapeDtypeStruct((TB, n), dt),           # xB
-            jax.ShapeDtypeStruct((TB, n), jnp.int32),    # basis
-            jax.ShapeDtypeStruct((TB, W1), dt),          # val
-            jax.ShapeDtypeStruct((TB, 1), jnp.int32),    # pivots
-            jax.ShapeDtypeStruct((TB, 1), jnp.int32),    # status
-        ],
-        interpret=interpret,
-        **({} if interpret else dict(compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=_VMEM_LIMIT))),
+    # solved-at-start lanes enter with their pre-pivot state and a final
+    # status, so the kernel's loop does not run for them
+    solved = init.solved_at_start
+    T_in = jnp.where(solved[:, None, None], init.T0t, init.T1)
+    basis_in = jnp.where(solved[:, None], init.basis0,
+                         init.basis1).astype(jnp.int32)
+    f32, i32 = jnp.float32, jnp.int32
+    # padded rows are inert: zero column and zero row bounds give an
+    # infinite ratio, and basis id -1 is never the artificial t
+    operands = (
+        _pad(T_in[:, :, :W1], (B, NP, WP), 0.0),
+        _pad(T_in[:, :, W1], (B, NP), 0.0),
+        _pad(basis_in, (B, NP), -1),
+        _pad(init.val0, (B, WP), 0.0),
+        _pad(jnp.take_along_axis(init.var_lb, basis_in, axis=1), (B, NP), 0.0),
+        _pad(jnp.take_along_axis(init.var_ub, basis_in, axis=1), (B, NP), 0.0),
+        _pad(init.var_lb, (B, WP), 0.0),
+        _pad(init.var_ub, (B, WP), 0.0),
+        _pad(init.l_eff, (B, NP), 0.0),
+        _pad(init.u_eff, (B, NP), 0.0),
+        jnp.stack([init.ent0, init.status_init], axis=1).astype(i32),
+        jnp.stack([init.dir0, init.ev0], axis=1).astype(f32),
     )
-    parts = [call(*(a[s:s + TB] for a in operands))
-             for s in range(0, Bpad, TB)]
-    outs = ([jnp.concatenate(ps, axis=0)[:B] for ps in zip(*parts)]
-            if len(parts) > 1 else [a[:B] for a in parts[0]])
-    xB, basis, val, piv, status = outs
 
-    # z_i = basic row value where basic, nonbasic value otherwise
-    in_basis = basis < n
-    z_from_rows = jnp.sum(
-        jnp.where(in_basis[:, :, None]
-                  & (basis[:, :, None] == jnp.arange(n)[None, None, :]),
-                  xB[:, :, None], 0.0), axis=1)
-    covered = jnp.any(
-        in_basis[:, :, None]
-        & (basis[:, :, None] == jnp.arange(n)[None, None, :]), axis=1)
-    z = jnp.where(covered, z_from_rows, val[:, :n])
-    z = jnp.where(var_mask, z, 0.0)
-    # +1 counts the covering pivot (t entering), matching the XLA engine
-    piv = jnp.where(init.solved_at_start, 0, piv[:, 0] + 1)
-    return z, status[:, 0], piv, basis, val
+    def spec(a):
+        return pl.BlockSpec((None,) + a.shape[1:],
+                            lambda b: (b,) + (0,) * (a.ndim - 1))
+
+    out_shape = (jax.ShapeDtypeStruct((B, NP), f32),      # xB
+                 jax.ShapeDtypeStruct((B, NP), i32),      # basis
+                 jax.ShapeDtypeStruct((B, WP), f32),      # val
+                 jax.ShapeDtypeStruct((B, 2), i32))       # (pivots, status)
+    xB, basis, val, lane = pl.pallas_call(
+        _make_kernel(n, NP, WP, max_pivots, tol, piv_tol),
+        grid=(B,),
+        in_specs=[spec(a) for a in operands],
+        out_specs=[spec(o) for o in out_shape],
+        out_shape=out_shape,
+        compiler_params=plgpu.CompilerParams(
+            num_warps=_num_warps(NP, WP), num_stages=1),
+        interpret=interpret,
+        name="lemke_pivot",
+    )(*operands)
+    return jax.vmap(_lemke_extract)(
+        init, xB[:, :n], basis[:, :n], val[:, :W1], lane[:, 0], lane[:, 1],
+        var_mask)

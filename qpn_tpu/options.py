@@ -58,7 +58,7 @@ class QPNetOptions:
     # while REPORTING options.tol in the error message
     # (qp_processing.jl:86-89) — the default preserves that behavioral
     # parity, but the gate is now a real option and the message reports the
-    # tolerance actually used (VERDICT r4 item 8).
+    # tolerance actually used.
     verify_feas_tol: float = 1e-3
 
 

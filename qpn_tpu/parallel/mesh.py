@@ -1,7 +1,7 @@
 """Device-mesh construction for multi-chip equilibrium solving.
 
 The reference has no parallelism at all (SURVEY.md §2.3; threading was
-disabled for correctness, sets.jl:889-894).  The TPU framework's parallel
+disabled for correctness, sets.jl:889-894).  This framework's parallel
 axes map the algorithm's latent concurrency onto a 2-D mesh:
 
 * ``scenario`` — data-parallel axis: independent QPNet instances

@@ -1,19 +1,15 @@
 """Multi-host initialization — the distributed communication backend
 (SURVEY.md §2.3 last row: the reference has none; the target design runs
-scenario/branch axes across hosts with ICI collectives inside a slice and
-DCN between slices).
+scenario/branch axes across hosts, with NVLink collectives inside a host
+and the network between hosts).
 
-On a multi-host TPU slice each process calls :func:`init` once before any
+On a multi-host cluster each process calls :func:`init` once before any
 jax computation; the (scenario × branch) mesh from ``parallel.mesh`` then
 spans every host's devices automatically (``jax.devices()`` is global after
 ``jax.distributed.initialize``), and the sharded kernels in
-``parallel/sharded.py`` work unchanged — XLA routes `psum`/`all_gather`
-over ICI within a slice and DCN across slices.
-
-This environment has a single chip, so the path is exercised by the test
-suite on the virtual CPU mesh and compile-checked by
-``__graft_entry__.dryrun_multichip``; on real pods this module is the entry
-point.
+``parallel/sharded.py`` work unchanged — XLA hands `psum`/`all_gather` to
+NCCL.  This path has been exercised only across CPU processes so far
+(tests/test_multihost.py); ROADMAP B5.
 """
 
 from __future__ import annotations
@@ -26,7 +22,8 @@ def init(coordinator_address: Optional[str] = None,
          num_processes: Optional[int] = None,
          process_id: Optional[int] = None) -> None:
     """Initialize jax.distributed from explicit args or the standard
-    environment (TPU pods auto-discover when no args are given)."""
+    environment (managed clusters auto-discover when no args are given;
+    elsewhere pass coordinator_address, num_processes and process_id)."""
     import jax
     kwargs = {}
     if coordinator_address is not None:

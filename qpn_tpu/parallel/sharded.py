@@ -1,7 +1,7 @@
 """Multi-chip equilibrium kernels: sharded batched AVI solves + collective
 piece pruning.
 
-Design (SURVEY.md §2.3): the reference is fully serial; the TPU framework's
+Design (SURVEY.md §2.3): the reference is fully serial; this framework's
 scaling axes are
 
 * scenario batches (dp): independent QPNet instances solve as one sharded
@@ -225,11 +225,17 @@ def equilibrium_superstep(mesh: Mesh, batch, tol=1e-8, max_iter=840):
     3. active-set signatures per scenario solution
     4. collective duplicate-piece prune                 (all_gather, ep/tp)
 
+    In the prune every certified lane (resid ≤ tol) scores 0, so among
+    certified duplicates the lowest index survives: their residuals are
+    float noise, which differs in the last bits between meshes and would
+    otherwise decide which duplicate is kept.
+
     Trajectory-scale shared-matrix ensembles (``batch["structure"]`` with
     ``shared_M`` at n ≥ config.shared_kkt_min_n) route through the shared
     GEMM+policy-iteration path with the SAME mesh — at n≥600 the generic
-    per-lane Newton kernel is both slower and (on TPU) the round-3
-    kernel-fault class; small ensembles keep the sharded Newton kernel.
+    per-lane Newton kernel is slower; small ensembles keep the sharded
+    Newton kernel.  Either way the returned per-lane arrays are sharded
+    over the mesh's scenario axis when the lane count divides it.
     """
     structure = batch.get("structure") if hasattr(batch, "get") else None
     n = np.asarray(batch["M"]).shape[-1]
@@ -242,9 +248,12 @@ def equilibrium_superstep(mesh: Mesh, batch, tol=1e-8, max_iter=840):
         res = solve_kkt_avi_shared(
             M0[0] if M0.ndim == 3 else M0, batch["q"], batch["l"],
             batch["u"], None, tol=tol, structure=structure, mesh=mesh)
-        res = type(res)(z=jnp.asarray(res.z), resid=jnp.asarray(res.resid),
-                        iters=jnp.asarray(res.iters),
-                        converged=jnp.asarray(res.converged))
+        S = np.asarray(batch["q"]).shape[0]
+        put = (functools.partial(jax.device_put,
+                                 device=scenario_sharding(mesh))
+               if S % mesh.devices.size == 0 else jnp.asarray)
+        res = type(res)(z=put(res.z), resid=put(res.resid),
+                        iters=put(res.iters), converged=put(res.converged))
     else:
         res = sharded_avi_solve(mesh, batch["M"], batch["q"], batch["l"],
                                 batch["u"], batch["z0"], batch["mask"],
@@ -258,8 +267,9 @@ def equilibrium_superstep(mesh: Mesh, batch, tol=1e-8, max_iter=840):
     at_l = (jnp.abs(z - lq) < 1e-6)
     at_u = (jnp.abs(z - uq) < 1e-6)
     act = (at_l.astype(jnp.int32) + 2 * at_u.astype(jnp.int32))
+    score = jnp.where(res.resid <= tol, 0.0, res.resid)
     keep = sharded_containment_prune(mesh, _fetch_global(act),
-                                     _fetch_global(res.resid))
+                                     _fetch_global(score))
     return dict(z=z, resid=res.resid, converged_frac=frac, keep=keep)
 
 

@@ -22,8 +22,9 @@ EXECUTING it before install, so a bad program can only kill the worker.
 
 Scope: host-driver kernels with numpy in / numpy-consumed out (the
 geometry/verification batch kernels).  NOT used under jit or vmap; only
-active on the CPU backend (the worker must not claim the TPU — this
-image wedges on multi-process chip claims).
+active on the CPU backend, and the worker runs with the accelerator hidden
+(one process per card: a second JAX process on the card would find most of
+its memory reserved by the parent).
 
 Degrades gracefully: any failure (export unsupported, version skew,
 corrupt file) falls back to calling the live jitted function.  Disable
@@ -43,8 +44,12 @@ from typing import Callable, Optional
 
 import numpy as np
 
-_DIR = os.environ.get(
-    "QPN_AOT_CACHE_DIR", os.path.expanduser("~/.cache/qpn_tpu_aot"))
+def _default_dir() -> str:
+    from ..config import CHECKOUT_DIR
+    return os.path.join(CHECKOUT_DIR, ".aot_cache")
+
+
+_DIR = os.environ.get("QPN_AOT_CACHE_DIR") or _default_dir()
 _ENABLED = os.environ.get("QPN_AOT_CACHE", "1") != "0"
 _KEY_VERSION = "v2"     # bumped when the artifact pipeline changes
 
@@ -56,6 +61,15 @@ _SRC_HASH: Optional[str] = None
 _PENDING: dict = {}              # key -> job dict (not yet handed off)
 _WORKER: Optional[subprocess.Popen] = None
 _WORKER_JOBFILE: Optional[str] = None
+
+
+def cpu_only_env() -> dict:
+    """Environment for a helper process that must stay off the accelerator:
+    the CPU platform only, with every GPU hidden."""
+    env = dict(os.environ)
+    env["JAX_PLATFORMS"] = "cpu"
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    return env
 
 
 def _src_hash() -> str:
@@ -260,7 +274,7 @@ def _schedule_export(key, path, jit_fn, args, kwargs,
                      static_kw=None) -> None:
     backend = _effective_backend()
     if backend != "cpu":
-        return      # the CPU-only worker can't lower/validate for TPU
+        return      # the CPU-only worker can't lower/validate for the GPU
     ref = _fn_ref(jit_fn)
     if ref is None:
         return
@@ -296,7 +310,9 @@ def _flush_pending(force: bool = False) -> None:
         return
     jobs = list(_PENDING.values())
     _PENDING.clear()
-    fd, jobfile = tempfile.mkstemp(suffix=".json", prefix="qpn_aot_")
+    os.makedirs(_DIR, exist_ok=True)
+    fd, jobfile = tempfile.mkstemp(suffix=".json", prefix="qpn_aot_",
+                                   dir=_DIR)
     with os.fdopen(fd, "w") as f:
         json.dump(jobs, f)
     try:
@@ -307,7 +323,8 @@ def _flush_pending(force: bool = False) -> None:
         _WORKER = subprocess.Popen(
             [sys.executable, "-m", "qpn_tpu.utils.aot_export_worker",
              jobfile],
-            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+            env=cpu_only_env())
         _WORKER_JOBFILE = jobfile
         import atexit
         atexit.register(_drain_exports)

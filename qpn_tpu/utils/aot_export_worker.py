@@ -136,6 +136,7 @@ def main() -> int:
                 flags + f" --xla_force_host_platform_device_count={ndev}")
     import jax
     jax.config.update("jax_platforms", "cpu")   # CPU-only worker
+    from . import aot_cache
     dirs = set()
     for job in jobs:
         try:
@@ -150,7 +151,8 @@ def main() -> int:
             r = subprocess.run(
                 [sys.executable, "-m", "qpn_tpu.utils.aot_export_worker",
                  "--validate", d],
-                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL)
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+                env=aot_cache.cpu_only_env())
             pending = [p for p in glob.glob(os.path.join(d, "*.stablehlo"))
                        if not os.path.exists(p + ".ok")]
             if r.returncode == 0 and not pending:

@@ -1,7 +1,7 @@
 """FLOP and byte accounting for the solver kernels (roofline/MFU reporting).
 
-The reference publishes no performance model at all; BASELINE.json's north
-star is throughput-based.  To judge single-chip quality honestly the bench
+The reference publishes no performance model at all.  To judge single-card
+quality honestly the bench
 also reports *achieved* FLOP/s against the chip's peak (MFU) and the implied
 HBM traffic against peak bandwidth — for these small dense systems the
 binding roofline is latency/bandwidth, and the numbers make that visible
@@ -12,20 +12,37 @@ the iteration counts actually executed as reported by the solvers.  They
 deliberately count the *useful* algorithm flops — padding lanes and padded
 rows are excluded — so MFU reads as "useful work extracted from the chip".
 
-Peaks (public numbers, TPU v5e single chip):
-  bf16 MXU peak   197 TFLOP/s
-  f32 (via MXU)    ~49 TFLOP/s      (multi-pass bf16 decomposition)
-  f64 (software)   no native rate — emulated; reported against f32 peak
-  HBM bandwidth    819 GB/s
+Peak rates come from one table keyed by ``jax.Device.device_kind``; a
+device that is not in it is an error, never a default.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-V5E_PEAK_BF16 = 197e12
-V5E_PEAK_F32 = 49e12
-V5E_HBM_GBS = 819e9
+# NVIDIA H100 data sheet (SXM5 part, dense rates without sparsity; rated at
+# the 700 W power limit — a card capped lower cannot hold them).  FLOP/s by
+# operand type, "hbm" in bytes/s.
+_H100_SXM = {
+    "bf16": 989e12,
+    "tf32": 495e12,
+    "f32": 67e12,      # outside the tensor cores
+    "f64": 67e12,      # f64 tensor cores; 34e12 on the CUDA cores
+    "hbm": 3.35e12,
+}
+PEAKS = {
+    "NVIDIA H100 80GB HBM3": _H100_SXM,
+}
+
+
+def device_peaks(device_kind: str) -> dict:
+    """Peak FLOP/s and bytes/s of one device of this ``device_kind``."""
+    try:
+        return PEAKS[device_kind]
+    except KeyError:
+        raise KeyError(f"no peak rates recorded for device kind "
+                       f"{device_kind!r}; add its data-sheet rates to "
+                       f"qpn_tpu.utils.flops.PEAKS") from None
 
 
 def admm_flops(n: int, m: int, iters, *, ruiz_iters: int = 10,
@@ -75,7 +92,7 @@ def lemke_flops(n: int, pivots) -> float:
 def admm_bytes(n: int, m: int, iters, dtype_bytes: int = 8) -> float:
     """Approximate HBM traffic of the ADMM loop: per iteration the A matrix
     is streamed twice (A'v and Ax) and the Cholesky factor once; vectors are
-    negligible.  VMEM residency makes this an upper bound for small shapes."""
+    negligible.  Cache residency makes this an upper bound for small shapes."""
     iters = np.asarray(iters, dtype=np.float64)
     per_iter = dtype_bytes * (2 * m * n + n * n)
     return float(np.sum(iters * per_iter))

@@ -1,6 +1,7 @@
 """ctypes loader for the native host kernels (qpn_tpu/native/qpn_host.cpp).
 
-Builds the shared library with g++ on first use (cached in ~/.cache), and
+Builds the shared library with g++ on first use (cached in the checkout's
+``.native_build/``), and
 falls back to pure-Python implementations when no compiler is available —
 behavior is identical either way (tests assert it)."""
 
@@ -33,7 +34,8 @@ def _load() -> Optional[ctypes.CDLL]:
     if not os.path.exists(src):
         return None
     tag = hashlib.sha1(open(src, "rb").read()).hexdigest()[:12]
-    cache = os.path.join(os.path.expanduser("~/.cache/qpn_tpu_native"))
+    from ..config import CHECKOUT_DIR
+    cache = os.path.join(CHECKOUT_DIR, ".native_build")
     so = os.path.join(cache, f"libqpn_host_{tag}.so")
     if not os.path.exists(so):
         try:

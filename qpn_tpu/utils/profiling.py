@@ -13,14 +13,17 @@ import os
 
 
 @contextlib.contextmanager
-def trace(log_dir: str = "/tmp/qpn_tpu_trace"):
-    """Profile a block::
+def trace(log_dir: str | None = None):
+    """Profile a block (default directory: ``traces/`` in the checkout)::
 
         from qpn_tpu.utils.profiling import trace
-        with trace("/tmp/trace"):
+        with trace("traces/solve"):
             qt.solve(qpn)
     """
     import jax
+    if log_dir is None:
+        from ..config import CHECKOUT_DIR
+        log_dir = os.path.join(CHECKOUT_DIR, "traces")
     os.makedirs(log_dir, exist_ok=True)
     jax.profiler.start_trace(log_dir)
     try:

@@ -62,7 +62,7 @@ def main():
     x_opts = np.stack([np.asarray(o.x_opt) for o in outs])
 
     # (c) trajectory-scale shared-KKT route over the SAME process-spanning
-    # mesh (VERDICT r4 item 4): S=4096 scenarios shard across both
+    # mesh: S=4096 scenarios shard across both
     # processes' devices; the EG pre-pass and fused round 0 are global SPMD
     # dispatches (allgather fetches), the policy rounds / rungs replicate
     # host-side — lane outcomes must be EXACTLY the single-process ones.

@@ -42,7 +42,7 @@ def test_verify_solution_active_constraint():
 
 
 def test_verify_feas_tol_option():
-    """The feasibility gate is a real option (VERDICT r4 item 8): the
+    """The feasibility gate is a real option: the
     reference hardcodes 1e-3 and misreports options.tol in the message
     (qp_processing.jl:86-89); here the default keeps the 1e-3 behavior but
     the gate is configurable and the message reports the tolerance USED."""
@@ -204,7 +204,7 @@ def test_convexity_audit_per_combo():
 
 
 class TestMinNormSharedVariableMode:
-    """shared_variable_mode=MIN_NORM consumer (VERDICT r3 item 9): the
+    """shared_variable_mode=MIN_NORM consumer: the
     reference's live solve_qep accepts and DROPS the flag (avi.jl:387-390);
     its semantics live in deprecated/avi.jl:148-369 — re-solve restricted to
     the local solution piece minimizing the solution-graph duals' norm."""

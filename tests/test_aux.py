@@ -130,7 +130,7 @@ def test_metrics_scope():
 
 
 class TestFrontierCheckpoint:
-    """VERDICT r1 item 7: mid-enumeration kill/resume reproduces the final
+    """mid-enumeration kill/resume reproduces the final
     piece set from the stored frontier instead of restarting discovery."""
 
     def _enumerator(self, store=None):

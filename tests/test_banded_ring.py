@@ -93,7 +93,7 @@ def test_banded_admm_matches_dense():
 
 def test_detect_banded_k():
     """Structure auto-detection: finds the true block size of trajectory
-    KKT patterns, returns 0 for dense ones (VERDICT r2 item 3)."""
+    KKT patterns, returns 0 for dense ones."""
     from qpn_tpu.ops.banded import detect_banded_k
     rng = np.random.default_rng(7)
     T, k = 16, 6
@@ -184,8 +184,7 @@ def _subset_zoo(n_centers, rng):
 def test_remove_subsets_large_path_matches_pairwise():
     """Above prune_dedup_threshold, remove_subsets must switch to the
     signature-dedup (mesh-sharded with >1 device) + blockwise-screen path
-    and return the EXACT piece set of the pairwise path (VERDICT r2 item 6:
-    connect the two prunes)."""
+    and return the EXACT piece set of the pairwise path."""
     from qpn_tpu.config import CONFIG
     from qpn_tpu.geometry import setops
     from qpn_tpu.utils.metrics import METRICS

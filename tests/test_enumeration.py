@@ -98,7 +98,7 @@ def test_vertex_exploration_budget():
 
 
 class TestVertexCompleteness:
-    """VERDICT r1 item 5: exploration must not miss pieces that a missed
+    """exploration must not miss pieces that a missed
     dual-slice vertex would have unlocked.  A redundant constraint through
     the corner of the nonnegative orthant makes the dual solution set a
     SEGMENT (degenerate): with exhaustive slice-vertex enumeration the

@@ -1,6 +1,6 @@
 """Tests for the batched Lemke complementary-pivot engine (ops/lemke.py).
 
-The engine is the TPU-native counterpart of PATH's pivoting core
+The engine is the batched counterpart of PATH's pivoting core
 (reference: avi.jl:63-77; prior art deprecated/avi_scratch.jl:17-134).
 Covers: random box-LCP classes (PD, nonsymmetric, monotone-degenerate),
 free/pinned/one-sided bounds, batch padding, the host/JAX agreement, and

@@ -1,6 +1,8 @@
-"""Correctness of the fused Pallas Lemke pivot kernel (interpret mode).
+"""Correctness of the fused Pallas Lemke pivot kernel and its dispatcher.
 
-The kernel (ops/lemke_pallas.py) must follow the same almost-complementary
+The kernel (ops/lemke_pallas.py) runs here in interpret mode; the compiled
+GPU kernel is checked by the ``gpu``-marked test below on a card and by
+``chip_smoke.py``.  It must follow the same almost-complementary
 path discipline as the XLA while_loop engine: same status codes, same
 pivot counts, and terminal complementary bases that refactorize to
 machine-precision residuals on the ORIGINAL f64 data.  Degenerate lanes
@@ -14,9 +16,11 @@ import numpy as np
 import pytest
 
 from qpn_tpu.ops.avi import natural_residual_np
-from qpn_tpu.ops.lemke import (LEMKE_SUCCESS, refactor_batch_np,
-                               solve_lemke_batch_state)
-from qpn_tpu.ops.lemke_pallas import solve_lemke_batch_state_pallas
+from qpn_tpu.ops.lemke import (LEMKE_SUCCESS, lemke_engine, refactor_batch_np,
+                               solve_lemke_batch_state,
+                               solve_lemke_batch_state_auto)
+from qpn_tpu.ops.lemke_pallas import (LEMKE_KERNEL_MAX_N, kernel_shape,
+                                      solve_lemke_batch_state_pallas)
 
 
 def _f32(a):
@@ -103,95 +107,115 @@ def test_kkt_scenario_ensemble_end_to_end():
     assert ok.all() and r.max() < 1e-9
 
 
-def test_structured_route_with_pallas_engine():
-    """solve_kkt_avi_batch with the forced Pallas engine certifies to the
-    same tolerance as the default engine on the scenario ensemble."""
-    from qpn_tpu.config import CONFIG
+def test_structured_route_with_pallas_engine(monkeypatch):
+    """solve_kkt_avi_batch with the kernel engine (interpreted) certifies to
+    the same tolerance as the XLA engine on the scenario ensemble."""
+    import qpn_tpu.ops.lemke as lemke_mod
+    import qpn_tpu.ops.lemke_pallas as lp
     from qpn_tpu.models.robust_avoid import scenario_batch_gavis
     from qpn_tpu.ops.avi import solve_kkt_avi_batch
+    from qpn_tpu.utils.metrics import METRICS
     batch = scenario_batch_gavis(num_scenarios=8, T=2, num_obj=1,
                                  num_poly_faces=4, seed=1)
     M, q, l, u = batch["M"], batch["q"], batch["l"], batch["u"]
     vm, structure = batch["mask"], batch["structure"]
-    old = CONFIG.lemke_kernel
-    try:
-        CONFIG.lemke_kernel = "pallas"
-        res = solve_kkt_avi_batch(M, q, l, u, vm, structure, tol=1e-10)
-    finally:
-        CONFIG.lemke_kernel = old
+    monkeypatch.setattr(lemke_mod, "lemke_engine", lambda n: "kernel")
+    kernel = lp.solve_lemke_batch_state_pallas
+    monkeypatch.setattr(lp, "solve_lemke_batch_state_pallas",
+                        lambda *a, interpret=False, **k: kernel(
+                            *a, interpret=True, **k))
+    c0 = METRICS.counters.get("lemke_kernel_lanes", 0)
+    res = solve_kkt_avi_batch(M, q, l, u, vm, structure, tol=1e-10)
+    assert METRICS.counters.get("lemke_kernel_lanes", 0) == c0 + 8
     assert np.asarray(res.converged).all()
     assert np.asarray(res.resid).max() <= 1e-10
 
 
-def test_xla_fallback_on_pallas_failure(monkeypatch):
-    """A Pallas-layer failure must fall back to the XLA engine, visibly."""
-    import qpn_tpu.ops.lemke as lemke_mod
+@pytest.mark.parametrize("n", [5, 17, 38, 64])
+def test_kernel_matches_xla_and_native(n):
+    """Kernel vs the XLA lane (same statuses and pivot counts) and vs the
+    host f64 exact engine (same solution after the f64 refactorisation),
+    across tableau paddings: n=5 -> (8, 16), 17 -> (32, 64),
+    38 -> (64, 128), 64 -> (64, 256)."""
+    from qpn_tpu.utils import native
+    M, q, l, u, vm = _rand_psd_lcp(3, n, seed=n)
+    u[:, : n // 3] = 0.5                     # boxes exercise bound flips
+    P, X = _run_both(M, q, l, u, vm)
+    np.testing.assert_array_equal(P[1], X[1])
+    np.testing.assert_array_equal(P[2], X[2])
+    assert (P[1] == LEMKE_SUCCESS).all()
+    z, ok, r = _refactor_resid(M, q, l, u, vm, P[3], P[4])
+    assert ok.all() and r.max() < 1e-9
+    out = native.lemke_batch(M, q, l, u, tol=1e-11)
+    if out is not None:                      # no compiler: nothing to check
+        zN, stN, _ = out
+        assert (stN == LEMKE_SUCCESS).all()
+        np.testing.assert_allclose(z, zN, atol=1e-8)
+
+
+@pytest.mark.parametrize("backend,n,mode,want", [
+    ("gpu", 38, "auto", "kernel"),
+    ("gpu", LEMKE_KERNEL_MAX_N, "auto", "kernel"),
+    ("gpu", LEMKE_KERNEL_MAX_N + 1, "auto", "xla"),   # oversize tableau
+    ("cpu", 38, "auto", "xla"),
+    ("gpu", 38, "xla", "xla"),                         # forced XLA lane
+])
+def test_engine_choice(monkeypatch, backend, n, mode, want):
     from qpn_tpu.config import CONFIG
-    from qpn_tpu.utils.metrics import METRICS
+    monkeypatch.setattr(CONFIG, "lemke_kernel", mode)
+    assert lemke_engine(n, backend) == want
+
+
+def test_kernel_size_bound_is_one_sm():
+    """The largest kernel tableau (f32) is at most a quarter of one SM's
+    256 KB register file; the next n doubles its rows past that."""
+    NP, WP = kernel_shape(LEMKE_KERNEL_MAX_N)
+    assert NP * WP * 4 <= (256 << 10) // 4
+    NP2, WP2 = kernel_shape(LEMKE_KERNEL_MAX_N + 1)
+    assert NP2 * WP2 * 4 > (256 << 10) // 4
+
+
+def test_kernel_failure_raises(monkeypatch):
+    """A kernel failure surfaces to the caller: no silent fallback to the
+    XLA lane."""
+    import qpn_tpu.ops.lemke_pallas as lp
 
     def boom(*a, **k):
-        raise RuntimeError("mosaic compile failure (simulated)")
-
-    import qpn_tpu.ops.lemke_pallas as lp
+        raise RuntimeError("kernel compile failure (simulated)")
     monkeypatch.setattr(lp, "solve_lemke_batch_state_pallas", boom)
-    monkeypatch.setattr(lemke_mod, "_PALLAS_FAILED", set())
-    # this test exercises the PRODUCTION fallback; the suite-wide strict
-    # mode (conftest) would turn the simulated failure into a raise
-    monkeypatch.setattr(CONFIG, "pallas_strict", False)
-    old = CONFIG.lemke_kernel
-    rng = np.random.default_rng(0)
-    n = 6
-    B = 8      # >= the auto-dispatch lane-tile gate
-    A = rng.standard_normal((B, n, n))
-    M = np.einsum("bij,bkj->bik", A, A) + 0.1 * np.eye(n)[None]
-    q = rng.standard_normal((B, n))
-    l = np.zeros((B, n))
-    u = np.full((B, n), np.inf)
-    before = METRICS.counters.get("lemke_pallas_fallback", 0)
-    try:
-        CONFIG.lemke_kernel = "pallas"
-        args = (_f32(M), _f32(q), _f32(l), _f32(u),
-                np.zeros((B, n), np.float32), np.ones((B, n), bool))
-        z, st, piv, basis, val = lemke_mod.solve_lemke_batch_state_auto(
-            *args, tol=1e-6, piv_tol=1e-5, max_pivots=256)
-        # the failing signature is memoized: the retry neither re-attempts
-        # the ~1s remote compile nor bumps the metric again
-        z2, st2, *_ = lemke_mod.solve_lemke_batch_state_auto(
-            *args, tol=1e-6, piv_tol=1e-5, max_pivots=256)
-    finally:
-        CONFIG.lemke_kernel = old
-    assert (np.asarray(st) == LEMKE_SUCCESS).all()
-    assert (np.asarray(st2) == LEMKE_SUCCESS).all()
-    assert METRICS.counters.get("lemke_pallas_fallback", 0) == before + 1
+    M, q, l, u, vm = _rand_psd_lcp(4, 6, seed=0)
+    with pytest.raises(RuntimeError, match="simulated"):
+        solve_lemke_batch_state_auto(
+            _f32(M), _f32(q), _f32(l), _f32(u), np.zeros((4, 6), np.float32),
+            vm, tol=1e-6, piv_tol=1e-5, max_pivots=256, engine="kernel")
 
 
-def test_small_batches_skip_pallas(monkeypatch):
-    """Sub-8 batches must not attempt the Pallas route at all (Mosaic
-    miscompiles (1, n) reduction shapes; failed remote compiles cost ~1s
-    per call — the sequential-baseline pathology)."""
-    import qpn_tpu.ops.lemke as lemke_mod
-    from qpn_tpu.config import CONFIG
+def test_kernel_rejects_what_it_cannot_run():
+    M, q, l, u, vm = _rand_psd_lcp(2, LEMKE_KERNEL_MAX_N + 1, seed=1)
+    z0 = np.zeros_like(q)
+    with pytest.raises(ValueError, match="n <="):
+        solve_lemke_batch_state_pallas(_f32(M), _f32(q), _f32(l), _f32(u),
+                                       _f32(z0), vm, interpret=True)
+    with pytest.raises(TypeError, match="float32"):
+        solve_lemke_batch_state_pallas(M[:, :4, :4], q[:, :4], l[:, :4],
+                                       u[:, :4], z0[:, :4], vm[:, :4],
+                                       interpret=True)
 
-    def boom(*a, **k):
-        raise AssertionError("pallas engine must not be called at B<8")
 
-    import qpn_tpu.ops.lemke_pallas as lp
-    monkeypatch.setattr(lp, "solve_lemke_batch_state_pallas", boom)
-    rng = np.random.default_rng(1)
-    n = 6
-    A = rng.standard_normal((2, n, n))
-    M = np.einsum("bij,bkj->bik", A, A) + 0.1 * np.eye(n)[None]
-    q = rng.standard_normal((2, n))
-    old = CONFIG.lemke_kernel
-    try:
-        CONFIG.lemke_kernel = "pallas"
-        z, st, piv, basis, val = lemke_mod.solve_lemke_batch_state_auto(
-            _f32(M), _f32(q), _f32(np.zeros((2, n))),
-            _f32(np.full((2, n), np.inf)), np.zeros((2, n), np.float32),
-            np.ones((2, n), bool), tol=1e-6, piv_tol=1e-5, max_pivots=256)
-    finally:
-        CONFIG.lemke_kernel = old
-    assert (np.asarray(st) == LEMKE_SUCCESS).all()
+@pytest.mark.gpu
+def test_compiled_kernel_on_gpu(gpu):
+    """The compiled kernel on the card agrees with the XLA lane."""
+    import jax
+    M, q, l, u, vm = _rand_psd_lcp(64, 38, seed=11)
+    args = [jax.device_put(a, gpu) for a in
+            (_f32(M), _f32(q), _f32(l), _f32(u), np.zeros((64, 38),
+                                                          np.float32), vm)]
+    kw = dict(tol=1e-6, piv_tol=1e-5, max_pivots=1024)
+    P = [np.asarray(a) for a in solve_lemke_batch_state_pallas(*args, **kw)]
+    X = [np.asarray(a) for a in solve_lemke_batch_state(*args, **kw)]
+    assert (P[1] == LEMKE_SUCCESS).all() and (X[1] == LEMKE_SUCCESS).all()
+    _, ok, r = _refactor_resid(M, q, l, u, vm, P[3], P[4])
+    assert ok.all() and r.max() < 1e-9
 
 
 def _rand_psd_lcp(B, n, seed):
@@ -206,9 +230,8 @@ def _rand_psd_lcp(B, n, seed):
 
 
 def test_non_power_of_two_batch_pads():
-    """B not a multiple of the lane tile must pad (lane-0 copies) rather
-    than collapse the tile to the (1, n) shapes Mosaic miscompiles; padded
-    results are sliced off and match the XLA engine lane-for-lane."""
+    """Batch sizes of any count (one program per lane) give the XLA
+    engine's results lane-for-lane."""
     for B in (3, 13, 33):
         M, q, l, u, vm = _rand_psd_lcp(B, 7, seed=B)
         P, X = _run_both(M, q, l, u, vm)

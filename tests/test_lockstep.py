@@ -1,6 +1,6 @@
 """Lockstep scenario-ensemble driver (parallel/lockstep.py).
 
-VERDICT r1 item 4: the WHOLE equilibrium loop must run as a multi-chip
+the WHOLE equilibrium loop must run as a multi-chip
 scenario ensemble, not just the leaf AVI batch.  These tests drive full
 ``solve()`` ensembles through the wave-fusing broker — serial-path
 agreement, kernel-wave fusion, and the 8-device virtual mesh sharding.
@@ -127,7 +127,7 @@ class TestBrokerRobustness:
 
 
 class TestHostLPParking:
-    """VERDICT r2 item 9: host-engine geometry LPs must also park at the
+    """host-engine geometry LPs must also park at the
     broker (fusing OpenMP batches across scenarios) instead of bypassing
     the waves entirely."""
 

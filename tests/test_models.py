@@ -169,7 +169,7 @@ def test_shepherd_sheep_pen_binding():
 
 
 def test_robust_avoid_simple_num_obj3_solves():
-    """Round-1 'Known limit' regression (BASELINE.md): three coupled
+    """Round-1 'Known limit' regression: three coupled
     obstacle/certificate branches defeat a naive equilibrium step — solving
     needs the full robustness ladder (vacuous-combo guard, joint-feasibility
     screen, alternate failing combos, perturb-to-continue).  The reference
@@ -305,17 +305,14 @@ def test_vis_equilibria_constellation_overlay(tmp_path):
 
 
 def test_trajectory_fingerprint_backend_invariant():
-    """Cross-backend trajectory anchor (VERDICT r3 item 3): the solve
+    """Cross-backend trajectory anchor: the solve
     trajectory — QEP-step count and projected-piece count — is pinned to
-    the golden CPU values.  Round 3 measured robust_avoid diverging on the
-    real TPU (71 pieces / 8 QEP vs 60 / 7): the cause was verification
-    glue (masked-LSQ dual recovery) dispatching to the accelerator's
-    emulated-f64 kernels, whose rounding flips sign splits near the 1e-2
-    activity band.  That glue is now pinned to host LAPACK on every
-    backend (algorithm.verify_solutions_batch small-dispatch placement;
-    ops/avi.solve_avi glue placement), so this test asserts the SAME
-    fingerprint whether the suite runs on CPU or against a real chip
-    (round-4 TPU zoo measured identical counts end to end)."""
+    the golden CPU values.  An accelerator's rounding in the verification
+    glue (masked-LSQ dual recovery) can flip sign splits near the 1e-2
+    activity band and change the trajectory, so that glue is pinned to
+    host LAPACK on every backend (algorithm.verify_solutions_batch
+    small-dispatch placement; ops/avi.solve_avi glue placement), and this
+    test asserts the SAME fingerprint whichever backend runs the suite."""
     import numpy as np
     import qpn_tpu as qt
 

@@ -1,4 +1,4 @@
-"""Two-process jax.distributed dryrun (VERDICT r2 item 7).
+"""Two-process jax.distributed dryrun.
 
 Spawns 2 CPU processes (4 virtual devices each) joined by
 ``jax.distributed.initialize``; each runs one sharded equilibrium superstep
@@ -71,7 +71,7 @@ def test_two_process_superstep_and_lockstep_parity(tmp_path):
     x_ref = np.stack(x_ref)
 
     # single-process shared-route reference over an 8-device mesh
-    # (VERDICT r4 item 4: the trajectory-scale shared route across a
+    # (the trajectory-scale shared route across a
     # process boundary, lane-exact)
     from qpn_tpu.ops.shared_kkt import solve_kkt_avi_shared
     sb = scenario_batch_gavis(num_scenarios=4096, T=2, num_obj=1,

@@ -195,26 +195,6 @@ def test_convert_gavi_roundtrip():
     assert ok
 
 
-def test_adaptive_onchip_guard(rng):
-    """The EG pre-pass must never make a lane worse (divergent EG output is
-    rejected per-lane by the natural-residual audit)."""
-    from qpn_tpu.ops.avi import solve_avi_batch_adaptive
-    B, n = 8, 6
-    Ms, qs = [], []
-    for _ in range(B):
-        G = rng.standard_normal((n, n))
-        # deliberately non-monotone
-        Ms.append(G - G.T + rng.standard_normal((n, n)))
-        qs.append(rng.standard_normal(n))
-    l = np.zeros((B, n))
-    u = np.full((B, n), np.inf)
-    res = solve_avi_batch_adaptive(np.array(Ms), np.array(qs), l, u,
-                                   np.zeros((B, n)),
-                                   np.ones((B, n), dtype=bool),
-                                   tol=1e-8, onchip_eg_steps=300)
-    assert np.isfinite(res.resid).all()
-
-
 def test_natural_residual_np():
     from qpn_tpu.ops.avi import natural_residual_np
     M = np.eye(2)[None]

@@ -73,10 +73,9 @@ def test_equilibrium_superstep():
 
 @requires_multidevice
 def test_equilibrium_superstep_routes_shared_at_trajectory_scale():
-    """The superstep routes trajectory-scale shared-matrix ensembles (the
-    E2E_r05 class) through the shared GEMM route on the same mesh — the
-    generic per-lane Newton kernel at n≥600 is both slower and the TPU
-    kernel-fault class (BENCH_r03)."""
+    """The superstep routes trajectory-scale shared-matrix ensembles
+    through the shared GEMM route on the same mesh — the
+    generic per-lane Newton kernel at n≥600 is slower."""
     from qpn_tpu.models.robust_avoid import scenario_batch_gavis
     from qpn_tpu.parallel.mesh import make_mesh
     from qpn_tpu.parallel.sharded import equilibrium_superstep
@@ -95,7 +94,7 @@ def test_equilibrium_superstep_routes_shared_at_trajectory_scale():
 @requires_multidevice
 @pytest.mark.slow
 def test_equilibrium_superstep_64():
-    """The BASELINE 64-scenario configuration through the sharded step."""
+    """The 64-scenario configuration through the sharded step."""
     from qpn_tpu.models.robust_avoid import scenario_batch_gavis
     from qpn_tpu.parallel.mesh import make_mesh
     from qpn_tpu.parallel.sharded import equilibrium_superstep
@@ -127,7 +126,7 @@ def test_level_sweep_scan_matches_recursion():
 
 def test_chain_sweep_routed_in_solve():
     """solve() routes chain networks through the level_sweep_scan warm start
-    (VERDICT r2 item 4): the sweep counter fires, ZERO QEP solves remain,
+   : the sweep counter fires, ZERO QEP solves remain,
     and the equilibrium + returned solution graphs are identical to the
     host-recursive route."""
     import qpn_tpu as qt

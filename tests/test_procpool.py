@@ -1,6 +1,6 @@
 """Process-parallel full-solve ensembles (parallel/procpool.py): host-core
 scaling of the OUTER equilibrium loop, the leg the GIL denies the lockstep
-broker (BASELINE.md lockstep ladder: ~1.05x at any D)."""
+broker (its lockstep ladder measured ~1.05x at any D)."""
 
 import numpy as np
 import pytest
@@ -47,9 +47,8 @@ def test_map_processes_generic():
 
 @pytest.mark.slow
 def test_procpool_hard_class_ladder():
-    """Strong-scaling ladder on the DEGENERATE trajectory class (VERDICT r4
-    item 5): seed-2 robust_avoid T=8 certificate ensembles through the
-    shared route, 1/2/4 one-core-pinned workers, warm pools (one uncounted
+    """Strong-scaling ladder on the DEGENERATE trajectory class: seed-2
+    robust_avoid T=8 certificate ensembles through the shared route, 1/2/4 one-core-pinned workers, warm pools (one uncounted
     job per worker).  Gates carry the measured hardware margin: a pure
     single-thread GEMM control on this box loses ~9% per core at all-core
     load (turbo/memory clock), and the warm 12-job ladder measured

@@ -1,6 +1,6 @@
 """Extreme-ray enumeration + unbounded hulls (geometry/rays.py) — the cdd
 V-representation role for unbounded polyhedra (reference sets.jl:439-496,
-977-1010), VERDICT r2 missing #4.
+977-1010).
 """
 
 import numpy as np

@@ -1,4 +1,4 @@
-"""End-to-end exercise of the requests subsystem (VERDICT r1 item 8).
+"""End-to-end exercise of the requests subsystem.
 
 The reference wires requests through signatures but the negotiation loop is
 dead code (requests.jl:22 early-return); the *components* — request-granted
@@ -68,7 +68,7 @@ class TestRequestsChangePieceDiscovery:
 
 
 class TestRequestsThroughSolve:
-    """options.make_requests wired through solve_base (VERDICT r2 item 5):
+    """options.make_requests wired through solve_base:
     requests are identified from the parent's verification duals on
     child-graph rows, negotiated in a re-solve round, and the child's
     DISCOVERED SOLUTION GRAPH CHANGES — while the equilibrium point and the

@@ -1,5 +1,5 @@
 """Scaling-efficiency regression for the sharded equilibrium superstep
-(SURVEY §2.3 row 8; BASELINE.json north star ≥80% scaling efficiency).
+(SURVEY §2.3 row 8; target ≥80% scaling efficiency).
 
 Real multi-chip hardware is unavailable, so the ladder runs on virtual CPU
 devices (one subprocess per device count, --xla_force_host_platform_
@@ -25,7 +25,7 @@ def test_superstep_scaling_efficiency():
     # wall-clock subprocess measurement on shared cores: retry with a
     # bigger sample before failing (a transient background process on the
     # build box otherwise flakes the 0.70 gate — measured 0.69 once under
-    # tunnel-daemon load vs 0.82 recorded quiet)
+    # background load vs 0.82 recorded quiet)
     S, reps = 256, 2
     eff = keep = 0.0
     for attempt in range(3):

@@ -109,7 +109,7 @@ class TestProductionRouting:
 
 class TestDeterminism:
     def test_straggler_population_identical_across_repeats(self):
-        """Variance CI gate (VERDICT r4 items 1/7): at a fixed seed the
+        """Variance CI gate: at a fixed seed the
         route's escalation-lane population, per-lane iteration counts, and
         solutions must be IDENTICAL across repeated solves — the r4 record
         showed host_solves 0 vs 105 between two runs of the same HEAD, and
@@ -142,9 +142,9 @@ class TestDeterminism:
 
 
 class TestDesignScale:
-    """Coverage at the scale the route exists for (VERDICT r3 item 7): the
-    round-3 crash config was T=8 / n=608 / S=1024 on TPU while tests topped
-    out at T=2 / n=38."""
+    """Coverage at the scale the route exists for: the production
+    configuration is T=8 / n=608 / S=1024, while the other tests top out at
+    T=2 / n=38."""
 
     def test_trajectory_scale_regression_T8_n608(self):
         """CPU regression at the full trajectory dimension (small S):
@@ -164,7 +164,7 @@ class TestDesignScale:
         assert bool(np.asarray(res.converged).all())
         assert float(np.asarray(res.resid).max()) <= 1e-8
         # degenerate stragglers may use the structured ADMM rung, but the
-        # generic hybrid (the BENCH_r03 crash class) must stay cold
+        # generic hybrid must stay cold
         assert METRICS.counters.get("shared_kkt_generic_escalation", 0) == c0
         # per-lane iters are real accounting now (eg iters + basis rounds),
         # not a faked broadcast of eg_iters (round-3 shared_kkt.py:331)
@@ -208,8 +208,8 @@ class TestDesignScale:
         assert METRICS.counters.get("shared_kkt_generic_escalation", 0) == g0
 
     def test_escalation_rung_runs_and_certifies(self, monkeypatch):
-        """The generic-escalation rung (the one that crashed the TPU worker
-        in round 3) solves lanes the cheap rungs were denied: disable the
+        """The generic-escalation rung solves lanes the cheap rungs were
+        denied: disable the
         Newton/host rungs and check escalation alone certifies the batch,
         bumping the metrics counter."""
         import qpn_tpu.ops.shared_kkt as sk
@@ -228,11 +228,10 @@ class TestDesignScale:
         assert bool(np.asarray(res.converged).all())
 
     def test_escalation_pinned_off_accelerator(self, monkeypatch):
-        """Crash containment (BENCH_r03 class): when the default backend is
-        an accelerator, the escalation rung must select a LOCAL CPU device —
-        the faulting kernel class never lands on the chip."""
+        """When the default backend is an accelerator, the escalation rung
+        selects a LOCAL CPU device (placement policy, ROADMAP C4)."""
         import qpn_tpu.ops.shared_kkt as sk
-        monkeypatch.setattr(sk.jax, "default_backend", lambda: "tpu")
+        monkeypatch.setattr(sk.jax, "default_backend", lambda: "gpu")
         dev = sk._escalation_device()
         assert dev is not None and dev.platform == "cpu"
         # and on a CPU-default process it is a no-op (no double indirection)
